@@ -1,6 +1,6 @@
-"""iq_tool_tpu — a TPU-native I/Q stream-processing framework.
+"""iq_tool_tpu — an I/Q stream-processing framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 ``pclov3r/iq_tool`` C tool (reference: /root/reference).  Instead of a
 5–8-thread CPU pipeline over liquid-dsp calls, the whole DSP chain
 (format-convert → DC-block → I/Q-imbalance-correct → frequency-shift →
@@ -11,7 +11,7 @@ format-convert) is a single jit-compiled block program
 (NCO phase, IIR state, filter tails, polyphase history, AGC gain) carried
 explicitly in a pytree.
 
-Multi-chip scaling uses ``jax.sharding.Mesh`` + ``shard_map`` over a
+Multi-device scaling uses ``jax.sharding.Mesh`` + ``shard_map`` over a
 (channel, time) mesh: channels are embarrassingly parallel; the time axis
 exchanges filter-history halos with a single ``ppermute`` per stateful
 stage per step (reference analog: the sequential carry discipline of

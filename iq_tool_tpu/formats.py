@@ -3,7 +3,7 @@
 Single source of truth for the 16 wire formats, mirroring the reference's
 format table (utils.c:29-47) and per-sample byte sizes
 (sample_convert.c:102-123).  Each format records how raw bytes map to
-device arrays so conversion can run on-TPU (the host only reinterprets
+device arrays so conversion can run on the device (the host only reinterprets
 bytes; all math happens in the jitted chain).
 """
 

@@ -32,8 +32,8 @@ for _c in (WavInput, RawFileInput, ToneInput):
 for _c in (RawFileOutput, WavOutput, WavRf64Output, WavLegacyOutput, StdoutOutput):
     register_output(_c)
 
-# SDR/network sources register themselves lazily (hardware drivers are not
-# present on TPU hosts; the modules still expose their full option surface
+# SDR/network sources register themselves lazily (hardware drivers may be
+# absent on the host; the modules still expose their full option surface
 # and fail with a clear error at initialize() if the driver is missing).
 try:  # pragma: no cover - import side effects
     from iq_tool_tpu.modules.input_spyserver import SpyServerInput

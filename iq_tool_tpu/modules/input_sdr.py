@@ -1,6 +1,6 @@
 """Local SDR hardware inputs: rtlsdr, sdrplay, hackrf, bladerf.
 
-TPU hosts have no radio hardware attached, but the modules keep full
+A compute host often has no radio hardware attached, but the modules keep full
 option-surface and behavioral parity with the reference
 (input_rtlsdr.c / input_sdrplay.c / input_hackrf.c / input_bladerf.c):
 
@@ -328,9 +328,9 @@ class RtlSdrInput(_SdrInputBase):
         libname = find_driver_lib("rtlsdr")
         if not libname:
             raise ValueError(
-                "rtlsdr input: librtlsdr not found on this host. TPU hosts "
-                "have no USB radio hardware; use the spyserver-client input "
-                "to stream from a remote SDR instead.")
+                "rtlsdr input: librtlsdr not found on this host. On a "
+                "host without USB radio hardware, use the spyserver-client "
+                "input to stream from a remote SDR instead.")
         self._lib = ctypes.CDLL(libname)
         self._args = args
         dev = ctypes.c_void_p()
@@ -444,8 +444,8 @@ class SdrPlayInput(_SdrInputBase):
         libname = find_driver_lib("sdrplay_api", "sdrplay")
         if not libname:
             raise ValueError(
-                "sdrplay input: libsdrplay_api not found on this host. TPU "
-                "hosts have no USB radio hardware; use the spyserver-client "
+                "sdrplay input: libsdrplay_api not found on this host. On a "
+                "host without USB radio hardware, use the spyserver-client "
                 "input to stream from a remote SDR instead.")
         lib = sp.bind(ctypes.CDLL(libname))
         self._lib = lib
@@ -779,9 +779,9 @@ class HackRfInput(_SdrInputBase):
         libname = find_driver_lib("hackrf")
         if not libname:
             raise ValueError(
-                "hackrf input: libhackrf not found on this host. TPU hosts "
-                "have no USB radio hardware; use the spyserver-client input "
-                "to stream from a remote SDR instead.")
+                "hackrf input: libhackrf not found on this host. On a "
+                "host without USB radio hardware, use the spyserver-client "
+                "input to stream from a remote SDR instead.")
         lib = ctypes.CDLL(libname)
         self._lib = lib
         self._args = args
@@ -880,8 +880,8 @@ class BladeRfInput(_SdrInputBase):
         libname = find_driver_lib("bladeRF")
         if not libname:
             raise ValueError(
-                "bladerf input: libbladeRF not found on this host. TPU "
-                "hosts have no USB radio hardware; use the spyserver-client "
+                "bladerf input: libbladeRF not found on this host. On a "
+                "host without USB radio hardware, use the spyserver-client "
                 "input to stream from a remote SDR instead.")
         lib = ctypes.CDLL(libname)
         self._lib = lib

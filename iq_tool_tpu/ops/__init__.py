@@ -1,6 +1,6 @@
 """DSP kernels (the numeric core).
 
-TPU-native replacements for the liquid-dsp primitives the reference wraps
+JAX replacements for the liquid-dsp primitives the reference wraps
 (SURVEY.md section 2b): sample conversion, DC block, NCO frequency shift,
 I/Q imbalance correction, FIR/FFT filtering + Kaiser design, polyphase
 rational resampling, and AGC.  All kernels operate on fixed-shape

@@ -11,7 +11,7 @@ Contract (src/agc.c, constants.h:164-192):
   to 0.99/peak and reset hang timer; strong (> 75% target) -> reset hang
   timer; weak for > 4 s -> gain *= 1.0005 per block.  Default target 0.9.
 
-TPU design: the digital profile is already block-granular scalar state ->
+Design: the digital profile is already block-granular scalar state ->
 direct jnp.where state machine.  The dx/local per-sample multiplicative
 loop is approximated at AGC_SEGMENT (=128 sample) granularity inside a
 lax.scan: per segment, g *= (target^2 / e2_out)^(beta/2) with
@@ -116,8 +116,7 @@ def rms_params(cfg: AgcConfig, n: int) -> tuple[int, int, float]:
 def rms_gains(xr: jnp.ndarray, xi: jnp.ndarray, state: AgcState,
               cfg: AgcConfig):
     """(gains (C, n_seg), seg, new_state): the per-segment gain schedule
-    for a block — shared by the XLA apply below and the fused post
-    kernel (pipeline/chain.py) so the two paths cannot drift."""
+    for a block."""
     c, n = xr.shape
     n_seg, seg, beta = rms_params(cfg, n)
     xsr = xr[:, : n_seg * seg].reshape(c, n_seg, seg)

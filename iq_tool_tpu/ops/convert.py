@@ -16,8 +16,9 @@ arrays (or uint8 for packed cs24) and shipped to the device, so the
 PCIe/host link carries the narrow wire format, not float32.
 
 Deviation from the reference: cs32/cu32 use float64 intermediates in C
-(sample_convert.c:176-202, 268-303); TPUs have no f64, so those two
-formats use f32 intermediates here (error < 2^-24 full scale, far inside
+(sample_convert.c:176-202, 268-303); the device path runs float32
+throughout (JAX's 64-bit mode stays off), so those two formats use f32
+intermediates here (error < 2^-24 full scale, far inside
 the 60 dB chain SNR budget).  All 8/16/24-bit formats are bit-exact.
 """
 
@@ -54,8 +55,8 @@ def to_planar(raw: jnp.ndarray, fmt: SampleFormat | str, gain: float = 1.0):
     ``raw``: (..., N*items_per_frame) array of ``wire_dtype(fmt)``
     (uint8 bytes for cs24).  Returns two (..., N) float32 planes.
     The planar pair is the chain's internal representation: complex64
-    ops decompose into plane arithmetic under XLA anyway, and Pallas
-    kernels have no complex dtype at all.
+    ops decompose into plane arithmetic under XLA anyway, and the Pallas
+    banded kernel has no complex dtype at all.
     """
     fmt = get_format(fmt) if isinstance(fmt, str) else fmt
     _require_complex(fmt)
@@ -80,79 +81,6 @@ def to_planar(raw: jnp.ndarray, fmt: SampleFormat | str, gain: float = 1.0):
     # Match the C operation order: (x * normalizer) * gain, both f32.
     pairs = (pairs * jnp.float32(fmt.normalizer)) * jnp.float32(gain)
     return pairs[..., 0], pairs[..., 1]
-
-
-def wire_pack(raw: jnp.ndarray, fmt: SampleFormat | str):
-    """(packed wire array, kind) for kernels that decode in-register, or
-    None when the format has no one-element-per-frame packing.
-
-    kind "cs16": (C, N) int32, I in the low 16 bits, Q in the high —
-    also used for sc16q11 (identical signed int16 wire; only the
-    normalizer differs, and that flows separately as wire_norm:
-    sample_convert.c:135-202 /2048 vs /32768);
-    kind "cu16": (C, N) int32 from the unsigned 16-bit wire;
-    kind "cu8"/"cs8": (C, N) int16, I in the low byte, Q in the high
-    (little-endian byte order of the interleaved wire).  The native SDR
-    formats all pack: RTL-SDR cu8, HackRF cs8, BladeRF sc16q11,
-    SDRplay cs16."""
-    fmt = get_format(fmt) if isinstance(fmt, str) else fmt
-    c = raw.shape[0]
-    if fmt.wire_dtype == np.int16 and fmt.signed and fmt.items_per_frame == 2:
-        return jax.lax.bitcast_convert_type(
-            raw.reshape(c, raw.shape[-1] // 2, 2), jnp.int32), "cs16"
-    if fmt.name == "cu16":
-        return jax.lax.bitcast_convert_type(
-            raw.reshape(c, raw.shape[-1] // 2, 2), jnp.int32), "cu16"
-    if fmt.name in ("cu8", "cs8"):
-        return jax.lax.bitcast_convert_type(
-            raw.reshape(c, raw.shape[-1] // 2, 2), jnp.int16), fmt.name
-    return None
-
-
-def packed_to_wire(packed: jnp.ndarray, fmt: SampleFormat | str):
-    """Bitcast a kernel-packed (C, N) output (pallas_kernels._pack_wire:
-    int32 for 16-bit wires, int16 for 8-bit, I in the low code) back to
-    the (C, N*items) wire array in the format's wire dtype — the exact
-    inverse of wire_pack's layout, so the bytes written are identical
-    to from_planar's."""
-    fmt = get_format(fmt) if isinstance(fmt, str) else fmt
-    c = packed.shape[0]
-    out = jax.lax.bitcast_convert_type(packed, jnp.dtype(fmt.wire_dtype))
-    return out.reshape(c, -1)
-
-
-def decode_packed(w: jnp.ndarray, kind: str, norm: float, gain: float):
-    """XLA decode of a packed wire slice from wire_pack — the exact twin
-    of the kernels' in-register decode (pallas_kernels._wire_decode),
-    for the small prefix/tail slices host-side fusions need.  Returns
-    (xr, xi) float32 with to_planar's operation order."""
-    v = w.astype(jnp.int32)
-    if kind == "cs16":
-        i_val = (v << 16) >> 16
-        q_val = v >> 16
-        off = 0.0
-    elif kind == "cu8":
-        i_val = v & 0xFF
-        q_val = (v >> 8) & 0xFF
-        off = 127.5
-    elif kind == "cs8":
-        i_val = (v << 24) >> 24
-        q_val = (v << 16) >> 24
-        off = 0.0
-    elif kind == "cu16":
-        i_val = v & 0xFFFF
-        q_val = (v >> 16) & 0xFFFF
-        off = 32767.5
-    else:
-        raise ValueError(f"unknown packed wire kind {kind!r}")
-    xr = i_val.astype(jnp.float32)
-    xi = q_val.astype(jnp.float32)
-    if off:
-        xr = xr - jnp.float32(off)
-        xi = xi - jnp.float32(off)
-    g = jnp.float32(gain)
-    n = jnp.float32(norm)
-    return (xr * n) * g, (xi * n) * g
 
 
 def to_cf32(raw: jnp.ndarray, fmt: SampleFormat | str, gain: float = 1.0):

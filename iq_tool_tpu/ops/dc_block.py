@@ -4,14 +4,14 @@ Contract (src/dc_block.c:20-86):  H(z) = (1 - z^-1) / (1 - (1-a) z^-1)
 with a = 2*pi*DC_BLOCK_CUTOFF_HZ / Fs at the *input* rate; applied
 in-place per block; reset on stream discontinuity.
 
-TPU design: the recurrence y[n] = (1-a)*y[n-1] + (x[n] - x[n-1]) is a
+Design: the recurrence y[n] = (1-a)*y[n-1] + (x[n] - x[n-1]) is a
 first-order *linear* recurrence with a CONSTANT coefficient, so it has
 the closed form y[n] = sum_{j<=n} (1-a)^(n-j) b[j].  Instead of a
-log-depth elementwise scan over the whole block (log2(N) full passes of
-HBM traffic), it runs as a two-level scan:
+log-depth elementwise scan over the whole block (log2(N) full passes
+over device memory), it runs as a two-level scan:
 
   1. tiles of T samples compute their local prefix via ONE triangular
-     matmul b_tile @ M^T with M[i,j] = (1-a)^(i-j) — MXU work, one pass;
+     matmul b_tile @ M^T with M[i,j] = (1-a)^(i-j) — one pass;
   2. a tiny associative scan over the nb = N/T per-tile totals
      propagates the cross-tile carry ((C, nb) elements, negligible);
   3. y = y_local + (1-a)^(i+1) * carry_prev broadcast fixes every tile.
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from iq_tool_tpu.constants import DC_BLOCK_CUTOFF_HZ
+from iq_tool_tpu.ops.precision import DOT
 
 
 class DcState(NamedTuple):
@@ -95,7 +96,7 @@ def _apply_plane(x: jnp.ndarray, x_prev: jnp.ndarray, y_prev: jnp.ndarray,
     m = jnp.asarray(_tri_matrix(a, t))
     dn = (((2,), (1,)), ((), ()))                   # contract tile dim with M cols
     y_local = jax.lax.dot_general(bt, m, dn,
-                                  precision=jax.lax.Precision.HIGHEST,
+                                  precision=DOT,
                                   preferred_element_type=jnp.float32)
     # cross-tile carry: Y[b] = y_local[b, -1] + a^T * Y[b-1]
     ends = y_local[:, :, -1]                        # (C, nb)
@@ -123,19 +124,8 @@ def init_planar(channels: int) -> PlanarDcState:
 
 def apply_planar(xr: jnp.ndarray, xi: jnp.ndarray, state: PlanarDcState,
                  alpha: float):
-    """Planar f32 planes (C, N) -> (yr, yi, new_state).  Uses the fused
-    Pallas kernel on TPU (one pass over HBM); two-level XLA scan
-    elsewhere."""
-    from iq_tool_tpu.ops import banded
-    if banded._on_tpu():
-        from iq_tool_tpu.ops import pallas_kernels
-        st4 = jnp.stack([state.xr_prev, state.xi_prev,
-                         state.yr_prev, state.yi_prev], axis=-1)
-        res = pallas_kernels.dc_block_apply(xr, xi, st4, alpha)
-        if res is not None:
-            yr, yi, st = res
-            return yr, yi, PlanarDcState(st[:, 0], st[:, 1],
-                                         st[:, 2], st[:, 3])
+    """Planar f32 planes (C, N) -> (yr, yi, new_state), each plane by
+    the two-level scan."""
     yr, xr_l, yr_l = _apply_plane(xr, state.xr_prev, state.yr_prev, alpha)
     yi, xi_l, yi_l = _apply_plane(xi, state.xi_prev, state.yi_prev, alpha)
     return yr, yi, PlanarDcState(xr_l, xi_l, yr_l, yi_l)

@@ -8,15 +8,15 @@ Reference behavior (src/filter.c):
 * implementation auto-choice: complex (asymmetric) taps -> FFT, symmetric
   -> FIR (filter.c:301-312), overridable.
 
-TPU design: both paths are stateless block maps plus a carried input tail
+Design: both paths are stateless block maps plus a carried input tail
 (the whole overlap discipline lives in the carry, so time-sharded meshes
 can halo-exchange the tail, SURVEY.md section 5):
 
 * direct: banded Toeplitz matmul over strided windows (ops/banded.py) —
-  the same MXU primitive as the polyphase resampler; complex taps cost 4
+  the same primitive as the polyphase resampler; complex taps cost 4
   real matmuls instead of 2;
-* overlap-save: ALL chunks of a block are FFT'd in one batched matmul-FFT
-  call (ops/fft.py) — windows are built by reshaping the tail-extended
+* overlap-save: ALL chunks of a block are FFT'd in one batched
+  ``jnp.fft`` call — windows are built by reshaping the tail-extended
   block into (n_chunks, 2*block) overlapped segments, so there is no
   sequential chunk loop at all.
 
@@ -33,13 +33,7 @@ import numpy as np
 
 from iq_tool_tpu import constants as C
 from iq_tool_tpu.ops import banded
-from iq_tool_tpu.ops import fft as tfft
 from iq_tool_tpu.ops.fir_design import choose_fft_block
-
-
-# Tests force the fused overlap-save kernel in Pallas interpret mode on
-# CPU (real-Mosaic coverage is tools/tpu_smoke.py's job).
-_OSFFT_INTERPRET = False
 
 
 def tail_len(num_taps: int, method: str, user_fft_size: int | None = None) -> int:
@@ -70,11 +64,14 @@ def _toeplitz(taps: np.ndarray, stride: int) -> np.ndarray:
     return t
 
 
+def _fft_filter(windows: jnp.ndarray, h: np.ndarray) -> jnp.ndarray:
+    """Circular convolution of each window with the frequency response h."""
+    return jnp.fft.ifft(jnp.fft.fft(windows) * h).astype(jnp.complex64)
+
+
 @functools.lru_cache(maxsize=None)
 def _freq_taps(taps_key, nfft: int):
-    # kept as NUMPY so jit embeds it as a literal constant (device-resident
-    # complex constants would need a device->host pull at trace time, which
-    # some PJRT backends cannot do)
+    # kept as NUMPY so jit embeds it as a literal constant
     taps = np.asarray(taps_key, np.complex64)
     return np.fft.fft(taps, nfft).astype(np.complex64)
 
@@ -93,9 +90,9 @@ class StreamingFilter:
         if method == "auto":
             # The reference picks FFT for complex taps because liquid's
             # time-domain firfilt_cccf is slow (filter.c:301-312); here both
-            # tap kinds run as banded MXU matmuls whose cost grows with the
+            # tap kinds run as banded matmuls whose cost grows with the
             # band width, so the crossover vs overlap-save is simply the tap
-            # count (measured on v5e: matmul wins through ~1k taps).
+            # count.
             method = "fir" if len(taps) <= 1024 else "fft"
         self.method = method
         self.taps = taps
@@ -107,13 +104,9 @@ class StreamingFilter:
             self._h = _freq_taps(tuple(taps.tolist()), self.nfft)
             # Overlap-save with nfft >= taps+block-1 IS exact linear
             # convolution, so for moderate tap counts the same output
-            # comes off a banded MXU matmul at full systolic-array
-            # utilization instead of chains of small DFT matmuls (the
-            # four-step's 32x64 factors use <10% of the 128x128 MXU).
+            # comes off the banded matmul instead of an FFT round trip.
             # Keep the (C, block) carry and output semantics; only the
-            # execution engine changes.  Measured on v5e: config #3 went
-            # 835 -> >2000 Msps with SNR unchanged (f32 accumulate vs
-            # bf16-HIGH DFT roundtrip).
+            # execution engine changes.
             self._exec_banded = self.num_taps <= 2048
         else:
             self._h = taps
@@ -154,113 +147,11 @@ class StreamingFilter:
                                          xr, xi, tr, ti, stride, k - 1)
             return (yr, yi, banded.new_tail(state_r, xr, hist),
                     banded.new_tail(state_i, xi, hist))
-        # fused Pallas overlap-save on TPU: each 2b window is read once,
-        # four-step transformed with H folded in, and written once — vs
-        # ~8 HBM materializations on the XLA path (see pallas_kernels)
-        fused = self._osfft_planar(xr, xi, state_r, state_i)
-        if fused is not None:
-            return fused
-        # overlap-save path works in the complex domain (matmul FFT)
+        # overlap-save path works in the complex domain
         x = jax.lax.complex(xr, xi).astype(jnp.complex64)
         st = jax.lax.complex(state_r, state_i).astype(jnp.complex64)
         y, ns = self(x, st)
         return jnp.real(y), jnp.imag(y), jnp.real(ns), jnp.imag(ns)
-
-    def apply_planar_packed(self, xr: jnp.ndarray, xi: jnp.ndarray,
-                            state_r: jnp.ndarray, state_i: jnp.ndarray,
-                            interpret: bool = False, out_fmt: str = "cs16"):
-        """Banded FIR whose output IS the quantized interleaved wire:
-        the kernel epilogue quantizes in VMEM, so when this filter
-        is the chain's LAST op the separate convert pass never touches
-        HBM (same trick as the resampler's last stage).  Returns
-        (packed wire, new_r, new_i) or None when the kernel path is
-        unavailable — the caller then runs apply_planar + convert
-        (filter.c:449-462 executes in-place and the conversion is a
-        separate pass there too; this removes it entirely)."""
-        if not self._exec_banded or self.num_taps == 1:
-            return None
-        n = xr.shape[-1]
-        k = self.num_taps
-        hist = self.block if self.method == "fft" else k - 1
-        stride = banded.largest_divisor_leq(n, C.BANDED_STRIDE_CAP)
-        tr, ti = self._toeplitz_for(stride)
-        wire = banded.apply_planar_packed(
-            state_r[:, hist - (k - 1):], state_i[:, hist - (k - 1):],
-            xr, xi, tr, ti, stride, k - 1, interpret=interpret,
-            out_fmt=out_fmt)
-        if wire is None:
-            return None
-        return (wire, banded.new_tail(state_r, xr, hist),
-                banded.new_tail(state_i, xi, hist))
-
-    @property
-    def osfft_advance(self) -> int:
-        """Window stride of the fused overlap-save kernel: 3b/2
-        (25% overlap, 33% fewer windows) when the taps fit in a quarter
-        window — guaranteed by choose_fft_block's doubling rule for
-        auto-sized filters — else the classic b."""
-        b = self.block
-        return 3 * b // 2 if (self.num_taps - 1) * 2 <= b else b
-
-    def _osfft_planar(self, xr, xi, state_r, state_i):
-        from iq_tool_tpu.ops import banded, pallas_kernels
-        if not banded._on_tpu() and not _OSFFT_INTERPRET:
-            return None
-        b = self.block
-        n = xr.shape[-1]
-        if n < b:
-            return None
-        h_key = getattr(self, "_h_key", None)
-        if h_key is None:
-            h_key = self._h_key = tuple(self._h.tolist())
-        ext_r = jnp.concatenate([state_r, xr], axis=-1)
-        ext_i = jnp.concatenate([state_i, xi], axis=-1)
-        # Mixed advance schedule: as many 3/4-advance windows as fit,
-        # then half-advance windows on what remains (at most one, since
-        # the remainder is < 3b/2), then the ragged XLA tail.  This keeps
-        # the kernel covering the maximum of ANY framing — including the
-        # CLI default where n_out < 3b/2 used to fall back entirely to
-        # half-advance (filter.c:491-526 overlap-save contract; the
-        # reference sizes FFT blocks freely, filter.c:317-336).
-        parts = [], []
-        s = 0
-        advances = [3 * b // 2] if (self.num_taps - 1) * 2 <= b else []
-        advances.append(b)
-        for adv in advances:
-            n_seg = ((n - s) // adv) * adv
-            if n_seg <= 0:
-                continue
-            res = pallas_kernels.osfft_apply(
-                ext_r[:, s: s + n_seg + b], ext_i[:, s: s + n_seg + b],
-                h_key, b, advance=adv, interpret=_OSFFT_INTERPRET)
-            if res is None:
-                continue          # Mosaic declined; try the next stride
-            parts[0].append(res[0])
-            parts[1].append(res[1])
-            s += n_seg
-        if s == 0:
-            return None           # kernel never engaged: full XLA path
-        # ragged tail (< b samples): re-anchored XLA windows.  Window for
-        # outputs [s, s+b) is ext[s : s + 2b]; the final one is
-        # re-anchored at n - b and its duplicated head outputs are
-        # discarded.
-        while s < n:
-            st = min(s, n - b)
-            win = jax.lax.complex(ext_r[:, st:st + 2 * b],
-                                  ext_i[:, st:st + 2 * b])
-            out = tfft.ifft(tfft.fft(win.astype(jnp.complex64)) * self._h)
-            out = out[..., b + (s - st):]
-            take = st + b - s            # st + b <= n always
-            out = out[..., :take]
-            parts[0].append(jnp.real(out))
-            parts[1].append(jnp.imag(out))
-            s += take
-        yr = (jnp.concatenate(parts[0], axis=-1) if len(parts[0]) > 1
-              else parts[0][0])
-        yi = (jnp.concatenate(parts[1], axis=-1) if len(parts[1]) > 1
-              else parts[1][0])
-        return (yr, yi, banded.new_tail(state_r, xr, b),
-                banded.new_tail(state_i, xi, b))
 
     def __call__(self, x: jnp.ndarray, state: jnp.ndarray):
         """x: (C, N) complex64, state: (C, block) -> (y (C, N), new state).
@@ -282,7 +173,7 @@ class StreamingFilter:
         if n % b == 0:
             segs = ext.reshape(c, n // b + 1, b)
             windows = jnp.concatenate([segs[:, :-1], segs[:, 1:]], axis=-1)
-            out = tfft.ifft(tfft.fft(windows) * self._h)[..., b:]
+            out = _fft_filter(windows, self._h)[..., b:]
             y = out.reshape(c, n)
         else:
             # Arbitrary n: static overlapping windows. Chunk i produces
@@ -294,7 +185,7 @@ class StreamingFilter:
             starts[-1] = n - b
             idx = starts[:, None] + np.arange(2 * b, dtype=np.int64)[None, :]
             windows = jnp.take(ext, jnp.asarray(idx), axis=-1)  # (C, nc, 2b)
-            out = tfft.ifft(tfft.fft(windows) * self._h)[..., b:]
+            out = _fft_filter(windows, self._h)[..., b:]
             head = out[:, :-1, :].reshape(c, (nc - 1) * b)
             tail = out[:, -1, -(n - (nc - 1) * b):]
             y = jnp.concatenate([head, tail], axis=-1)

@@ -212,10 +212,7 @@ def choose_fft_block(num_taps: int, user_fft_size: int | None = None) -> int:
         block *= 2
     if block < num_taps * 2:
         block *= 2
-    # the reference sizes for CPU cache locality (filter.c:317-336); on
-    # TPU larger batched DFT matmuls amortize better, so raise the auto
-    # floor (measured +7-11% on the FFT-path chain); --filter-fft-size
-    # still overrides.  The "double if < 2*taps" rule also guarantees
-    # block/2 >= taps-1, which the fused Pallas kernel's 3/4-window
-    # advance relies on (pallas_kernels.osfft_apply).
+    # the reference sizes for CPU cache locality (filter.c:317-336); a
+    # batched device FFT favours larger blocks, so the auto size has a
+    # floor; --filter-fft-size still overrides.
     return max(block, C.FFT_MIN_BLOCK)

@@ -12,7 +12,7 @@ iq_correct.c:20-50):
   (:362-388); rate-limited to 500 ms; result EMA-smoothed with factor 0.05
   (:206-216).
 
-TPU redesign of the search: the reference walks 25 random +-1e-4 diagonal
+Redesign of the search: the reference walks 25 random +-1e-4 diagonal
 steps (iq_correct.c:191-201, _get_random_direction).  Because the
 correction is LINEAR in the factors —
 
@@ -36,7 +36,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from iq_tool_tpu import constants as C
-from iq_tool_tpu.ops import fft as tfft
 
 
 class IqState(NamedTuple):
@@ -84,6 +83,11 @@ def _window(n: int) -> np.ndarray:
     if _WINDOW is None or _WINDOW.shape[0] != n:
         _WINDOW = _hamming(n)   # numpy: embeds as a jit literal
     return _WINDOW
+
+
+def _shifted_fft(x: jnp.ndarray) -> jnp.ndarray:
+    """fftshift(FFT(x)) over the last axis, complex64."""
+    return jnp.fft.fftshift(jnp.fft.fft(x.astype(jnp.complex64)), axes=-1)
 
 
 def _spectrum_db(base: jnp.ndarray, image: jnp.ndarray, g: jnp.ndarray,
@@ -139,8 +143,8 @@ def _optimize_channel(x: jnp.ndarray, factors: jnp.ndarray,
     """
     nfft = x.shape[-1]
     w = _window(nfft)
-    base = tfft.fftshift(tfft.fft(w * x))
-    image = tfft.fftshift(tfft.fft(w * jnp.real(x)))
+    base = _shifted_fft(w * x)
+    image = _shifted_fft(w * jnp.real(x))
     return _optimize_core(base, image, factors, passes)
 
 
@@ -200,8 +204,8 @@ def maybe_update(x: jnp.ndarray, state: IqState, interval_samples: int,
         (lax.cond: ~99% of blocks skip the whole estimator instead of
         computing-and-discarding it)."""
         w = _window(nfft)
-        base = tfft.fftshift(tfft.fft(w * seg))
-        image = tfft.fftshift(tfft.fft(w * jnp.real(seg)))
+        base = _shifted_fft(w * seg)
+        image = _shifted_fft(w * jnp.real(seg))
         spec0 = _spectrum_db(base, image, factors[:, 0], factors[:, 1])
         gate = _power_gate(spec0) >= jnp.float32(C.IQ_POWER_GATE_DB)  # (C,)
         new_raw = jax.vmap(

@@ -6,7 +6,7 @@ post-resample; frequency = 2*pi*|shift|/rate with direction by sign
 frequency (frequency_shift.c:102-107); sanity bound |shift| <= 5*rate
 (constants.h:247).
 
-TPU design: liquid's nco_crcf keeps a 32-bit fixed-point phase; we do the
+Design: liquid's nco_crcf keeps a 32-bit fixed-point phase; we do the
 same, but compute the whole block's phases in closed form instead of a
 per-sample recurrence:  phase_u32[n] = acc + n * dtheta_u32  (wrapping
 uint32 multiply-add over an iota), so there is no sequential dependency,

@@ -4,26 +4,25 @@ Contract (src/resampler.c, setup.c:91-122): ratio = target_rate /
 input_rate, validated 0.001..1000; 60 dB stop-band attenuation
 (constants.h:137); streaming `execute`; reset on discontinuity.
 
-Architecture (MXU-first, re-designed from liquid msresamp's staging):
+Architecture (re-designed from liquid msresamp's staging):
 
 * Ratios are rationalized to P/Q (Farey-bounded; exact for real-world
   integer rate pairs), then P/Q is decomposed into a cascade of small
   coprime rational stages p_i/q_i (prime-factor pairing, each factor
-  bounded so the stage's dense weight matrix stays VMEM-sized).  The
+  bounded so the stage's dense weight matrix stays small).  The
   device block is a multiple of prod(q_i), so every stage sees a static
   shape and produces EXACTLY n*p/q outputs per block — no data-dependent
   shapes, no fractional carry.
 
-* Every stage is an *analytic* polyphase executed as ONE dense MXU
-  matmul: the finite set of fractional phases is evaluated exactly into
+* Every stage is an *analytic* polyphase executed as ONE banded
+  matmul (ops/banded.py): the finite set of fractional phases is evaluated exactly into
   per-phase Kaiser-sinc weights (zero phase-quantization error — liquid
   quantizes to a 64-entry filterbank and lerps), which are densified
   into a banded matrix A[L, G] with A[s_m + k, m] = W[m, k].  Input
   windows of length L at stride g*q are built by two reshaped slices
-  (overlap = K-1 tap history), and out = windows @ A runs on the MXU.
-  This trades pad flops (the band is ~K wide inside L) for eliminating
-  the gather that would otherwise materialize a (C, M, K) tensor —
-  on TPU the MXU flops are free relative to the HBM traffic saved.
+  (overlap = K-1 tap history), and out = windows @ A.  This trades pad
+  flops (the band is ~K wide inside L) for eliminating the gather that
+  would otherwise materialize a (C, M, K) tensor.
 
 * A single-stage gather path (`_ArbStage`) remains as the fallback for
   ratios whose rationalization has a prime factor too large to stage.
@@ -45,6 +44,7 @@ import numpy as np
 from iq_tool_tpu import constants as C
 from iq_tool_tpu.ops import banded
 from iq_tool_tpu.ops.fir_design import kaiser_beta as _kaiser_beta
+from iq_tool_tpu.ops.precision import DOT
 
 
 def rationalize(ratio: float, max_denom: int = C.RESAMP_MAX_DENOM) -> tuple[int, int]:
@@ -116,7 +116,7 @@ def decompose_stages(p: int, q: int,
 # ------------------------------ stages ---------------------------------------
 
 class _MatmulStage:
-    """Rational p/q polyphase stage executed as one dense MXU matmul.
+    """Rational p/q polyphase stage executed as one banded matmul.
 
     Windows of length L = g*q + K - 1 at stride g*q are built from two
     reshaped slices of the (state ++ x) extension; out = win @ A where
@@ -128,21 +128,8 @@ class _MatmulStage:
     def __init__(self, p: int, q: int, n_in: int, atten_db: float,
                  semilength: int, group_cap: int = C.RESAMP_GROUP_CAP):
         assert n_in % q == 0
-        nb_total = n_in // q
-        g = 1
-        cap = max(1, group_cap // max(p, q))
-        # prefer group sizes whose stride g*q is lane-aligned: the Pallas
-        # banded kernel needs 128-lane tiles (16-aligned strides compose
-        # with div-8 window tiles), so alignment widens kernel coverage
-        for align in (128, 16, 1):
-            found = 0
-            for d in range(cap, 0, -1):
-                if nb_total % d == 0 and (d * q) % align == 0:
-                    found = d
-                    break
-            if found:
-                g = found
-                break
+        g = banded.largest_divisor_leq(n_in // q,
+                                       max(1, group_cap // max(p, q)))
         m = max(semilength, int(np.ceil(semilength * q / (2.0 * p))))
         plan = _make_arb_plan(p, q, g * q, atten_db, m)
         k_taps = plan.weights.shape[1]
@@ -213,28 +200,10 @@ class _MatmulStage:
         """Static output length for an n-sample input block."""
         return (n // self.stride) * self._a.shape[1]
 
-    def can_pack(self, n: int, ch: int, interpret: bool = False) -> bool:
-        """Static predicate for apply_planar_packed engaging (see
-        banded.can_pack) — lets the cascade decide before tracing."""
-        return banded.can_pack(self.stride, self.hist, self._a.shape[1],
-                               n, ch, interpret)
-
     def apply_planar(self, xr, xi, state_r, state_i):
         yr, yi = banded.apply_planar(state_r, state_i, xr, xi, self._a,
                                      self._a_i, self.stride, self.hist)
         return (yr, yi, banded.new_tail(state_r, xr, self.hist),
-                banded.new_tail(state_i, xi, self.hist))
-
-    def apply_planar_packed(self, xr, xi, state_r, state_i,
-                            interpret: bool = False, out_fmt: str = "cs16"):
-        """Last-stage variant: (packed wire | None, new_r, new_i) —
-        the kernel quantizes + interleaves in its epilogue, so the
-        output bytes are written directly (see banded.apply_planar_packed)."""
-        wire = banded.apply_planar_packed(state_r, state_i, xr, xi,
-                                          self._a, self._a_i, self.stride,
-                                          self.hist, interpret=interpret,
-                                          out_fmt=out_fmt)
-        return (wire, banded.new_tail(state_r, xr, self.hist),
                 banded.new_tail(state_i, xi, self.hist))
 
     def __call__(self, x, state):
@@ -242,61 +211,6 @@ class _MatmulStage:
             jnp.real(x), jnp.imag(x), jnp.real(state), jnp.imag(state))
         return (jax.lax.complex(yr, yi).astype(jnp.complex64),
                 jax.lax.complex(nr, ni).astype(jnp.complex64))
-
-
-def dc_stage0_consts(st0, n: int, dc_alpha: float, dtheta_pre: int):
-    """Design-time correction constants for a DC-fused stage 0 that runs
-    the DC recurrence from ZERO y-state per execution row (FoldedChain's
-    fold rows, ShardedChain's time shards).  All three are images of
-    FIXED signals under the stage-0 banded map, computed exactly in
-    numpy complex128 (cached on the stage, keyed by geometry):
-
-    * E: the zero-start DC correction signal D[k] = a^(k+1)·e^{jkΔθ}
-      (the per-row missing start term, post-NCO up to the per-row phase
-      factor) pushed through stage 0 with zero window context;
-    * D_tail: D's last `hist` samples (corrects the kernel's
-      processed-tail output);
-    * W_head: the (hist, n_head·g) matrix mapping a row's true left
-      context to the head windows' outputs — rows that ran the kernel
-      with ZERO context (the true context is the previous row's
-      processed tail, known only post-kernel) get this linear term
-      added back.
-
-    Returns (e_r, e_i, dtail_r, dtail_i, w_r, w_i, n_head·g) float32.
-    """
-    key = (int(n), float(dc_alpha), int(dtheta_pre) & 0xFFFFFFFF)
-    cached = getattr(st0, "_dc0_consts", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    s, hist, g = st0.stride, st0.hist, st0._a.shape[1]
-    nb = n // s
-    l = s + hist
-    a_real = np.float64(1.0 - dc_alpha)
-    dth = key[2]
-    dth_signed = dth - (1 << 32) if dth >= (1 << 31) else dth
-    ang = np.float64(dth_signed) * (2.0 * np.pi / 4294967296.0)
-    k = np.arange(n, dtype=np.float64)
-    d_sig = np.power(a_real, k + 1) * np.exp(1j * ang * k)
-    a_mat = st0._a.astype(np.float64)
-    if st0._a_i is not None:
-        a_mat = a_mat + 1j * st0._a_i.astype(np.float64)
-    ext = np.concatenate([np.zeros(hist, np.complex128), d_sig])
-    e_sig = np.empty(nb * g, np.complex128)
-    for j in range(nb):
-        e_sig[j * g:(j + 1) * g] = ext[j * s:j * s + l] @ a_mat
-    n_head = -(-hist // s)
-    w = np.zeros((hist, n_head * g), np.complex128)
-    for j in range(n_head):
-        lo = j * s
-        span = min(l, hist - lo)
-        if span > 0:
-            w[lo:lo + span, j * g:(j + 1) * g] = a_mat[:span]
-    f32 = lambda x: np.ascontiguousarray(x.astype(np.float32))
-    consts = (f32(e_sig.real), f32(e_sig.imag),
-              f32(d_sig[n - hist:].real), f32(d_sig[n - hist:].imag),
-              f32(w.real), f32(w.imag), n_head * g)
-    st0._dc0_consts = (key, consts)
-    return consts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,7 +271,7 @@ class _ArbStage:
         windows = ext[:, self._idx]                        # (C, M, K)
         w = jnp.asarray(self._wr)
         y = jnp.einsum("cmk,mk->cm", windows, w,
-                       precision=jax.lax.Precision.HIGH)
+                       precision=DOT)
         return y, ext[:, -self.plan.history:]
 
     def apply_planar(self, xr, xi, state_r, state_i):
@@ -441,26 +355,6 @@ class Resampler:
                                  stages=tuple(ratios or ()),
                                  fallback=fallback and p != q)
 
-    def kernel_coverage(self, channels: int) -> bool:
-        """Static: does every matmul stage's Pallas banded kernel engage
-        at this block geometry?  Small blocks can force a stage grouping
-        whose stride is not 128-lane aligned (e.g. n_in=16384 makes
-        stage 27/32 regroup to stride 224), which pallas_kernels.plan
-        rejects (Mosaic reshape constraint) — the XLA windows fallback
-        is correct but several times slower.  Chain's block sizing uses
-        this as a soft grow-the-block constraint on TPU."""
-        from iq_tool_tpu.ops import pallas_kernels
-        n_s = self.plan.n_in
-        for st in self.stages:
-            if isinstance(st, _MatmulStage):
-                if pallas_kernels.plan(st.stride, st.hist,
-                                       st._a.shape[1], n_s // st.stride,
-                                       channels) is None:
-                    return False
-            n_s = n_s * st.p // st.q if isinstance(st, _MatmulStage) \
-                else st.plan.n_out
-        return True
-
     def init(self, channels: int) -> tuple:
         return tuple(s.init(channels) for s in self.stages)
 
@@ -473,40 +367,6 @@ class Resampler:
             xr, xi, nr, ni = stage.apply_planar(xr, xi, sr, si)
             new_states.append((nr, ni))
         return xr, xi, tuple(new_states)
-
-    def apply_planar_packed(self, xr, xi, state: tuple,
-                            interpret: bool = False, out_fmt: str = "cs16"):
-        """All stages, with the LAST one quantizing straight to the
-        wire in its kernel epilogue.  Returns (packed wire, new_state) or
-        (None, None) when the last stage cannot pack (gather fallback,
-        or the kernel path is unavailable).  Packability is decided
-        STATICALLY up front — a block-length walk down the cascade plus
-        banded.can_pack on the final geometry — so a declining build
-        traces nothing (no reliance on XLA CSE/DCE to clean up
-        speculative earlier-stage traces)."""
-        if not self.stages:
-            return None, None          # p == q: no stages
-        from iq_tool_tpu.ops import pallas_kernels
-        if not pallas_kernels.packable_out(out_fmt):
-            return None, None
-        last = self.stages[-1]
-        if not hasattr(last, "apply_planar_packed"):
-            return None, None
-        n = xr.shape[-1]
-        for stage in self.stages[:-1]:
-            n = stage.out_len(n)
-        if not last.can_pack(n, xr.shape[0], interpret):
-            return None, None
-        new_states = []
-        for stage, (sr, si) in zip(self.stages[:-1], state[:-1]):
-            xr, xi, nr, ni = stage.apply_planar(xr, xi, sr, si)
-            new_states.append((nr, ni))
-        sr, si = state[-1]
-        wire, nr, ni = last.apply_planar_packed(xr, xi, sr, si, interpret,
-                                                out_fmt=out_fmt)
-        assert wire is not None, "can_pack/apply_planar_packed disagree"
-        new_states.append((nr, ni))
-        return wire, tuple(new_states)
 
     def reset(self, state: tuple) -> tuple:
         return jax.tree_util.tree_map(jnp.zeros_like, state)

@@ -1,7 +1,7 @@
-"""Multi-chip scaling: shard_map over a (channel, time) mesh.
+"""Multi-device scaling: shard_map over a (channel, time) mesh.
 
 The reference's only parallelism is a 5-8 thread stage pipeline
-(pipeline.c:96-116); the TPU-native equivalents (SURVEY.md section 2f):
+(pipeline.c:96-116); the JAX equivalents (SURVEY.md section 2f):
 
 * channel axis = pure data parallelism over independent streams;
 * time axis   = sequence parallelism over one stream's samples, with the

@@ -2,11 +2,11 @@
 
 The reference is strictly single-process (SURVEY.md section 2f); here the
 distribution story is: `jax.distributed.initialize` connects the hosts,
-the (channel, time) mesh spans the pod slice, and each host's I/O feeds
-its OWN channels' byte streams (host-local sharding of the channel axis),
-so the steady state needs no cross-host data redistribution — collectives
-ride ICI within a slice and only filter-tail halos cross hosts on the
-time axis.
+the (channel, time) mesh spans every host's devices, and each host's I/O
+feeds its OWN channels' byte streams (host-local sharding of the channel
+axis), so the steady state needs no cross-host data redistribution —
+collectives stay within a host's interconnect and only filter-tail halos
+cross hosts on the time axis.
 
 On a single host this degrades to the local device mesh; the functions
 are safe to call either way.
@@ -29,9 +29,10 @@ def initialize(coordinator_address: str | None = None,
 
     ``cpu_proxy_devices``: when set, configure this process's CPU backend
     with that many virtual devices and Gloo cross-process collectives —
-    the no-TPU-pod proxy used by tests/test_multihost.py and
-    tools/multihost_scaling.py (SURVEY.md section 4 item 4).  On real TPU
-    hosts leave it None; device counts come from the hardware.  Must be
+    the CPU proxy used by tests/test_multihost.py and
+    tools/multihost_worker.py (SURVEY.md section 4 item 4).  On hosts
+    with accelerators leave it None; device counts come from the
+    hardware.  Must be
     called before any JAX backend initializes.
     """
     if cpu_proxy_devices:

@@ -1,14 +1,12 @@
-"""Time-folded execution: one stream spread across sublane rows.
+"""Time-folded execution: one stream spread across batch rows.
 
-Why: the chip saturates near 64-128 batched channels (docs/PERF.md channel
-table) because Pallas kernels tile channels in 8-sublane blocks and the
-VPU/MXU batch dimension starves at C=1 — the reference's PRIMARY use case
-(one stream, SURVEY.md section 3.2 hot loop) got ~9% of chip capability.
+Why: a batched chain fills the device with independent channels, but the
+reference's PRIMARY use case is one stream (SURVEY.md section 3.2 hot
+loop), which gives the step a batch of one.
 
-Fix (VERDICT round-2 item 4): fold each channel's block into F
-consecutive time rows, so the compiled step sees a (C*F, n_sub) batch —
-the same shape a C*F-channel chain runs at full sublane occupancy — and
-stitch the sequential state across rows INSIDE the step:
+Fold each channel's block into F consecutive time rows, so the compiled
+step sees a (C*F, n_sub) batch — the same shape a C*F-channel chain runs
+— and stitch the sequential state across rows INSIDE the step:
 
 * halo tails (filters, resampler history, DC x_prev): row r uses row
   r-1's tail; row 0 uses the carry — a plain reshape+concat, the
@@ -27,11 +25,11 @@ stitch the sequential state across rows INSIDE the step:
 
 Equivalence contract (tests/test_folded.py): vs running the same stream
 through the unfolded chain at the row block size, the only deltas
-without the DC blocker are the known XLA batched-matmul M-dim
-re-association — the SAME +-1-code-on-<0.1%-of-samples delta that
-batched C>1 channels show against C=1 runs — and with the DC blocker its
-f32 association differences may move a few codes (60 dB SNR bound,
-code cap; identical to the sharded path's contract).
+without the DC blocker are batched-matmul re-association — at most
++-1 code on <0.1% of samples, as batched C>1 channels show against C=1
+runs — and with the DC blocker its f32 association differences may move
+a few codes (60 dB SNR bound, code cap; identical to the sharded path's
+contract).
 
 The wire layout matches an unfolded chain at block F*n_sub, so
 StreamEngine/CLI drive a FoldedChain unchanged; the carry pytree is the
@@ -48,14 +46,6 @@ from iq_tool_tpu import constants as C
 from iq_tool_tpu.ops import agc as agc_ops
 from iq_tool_tpu.ops import convert, dc_block, iq_balance, nco
 from iq_tool_tpu.pipeline.chain import Chain, ChainConfig
-
-# Tests force the fused Pallas pre-stage in interpret mode on CPU.
-_FUSED_INTERPRET = False
-
-
-def auto_fold(channels: int) -> int:
-    """Rows per channel that fill an 8-sublane block (1 past 8 channels)."""
-    return max(1, 8 // max(1, channels))
 
 
 class FoldedChain:
@@ -87,8 +77,7 @@ class FoldedChain:
         # Folding requires every stage's carried tail to fit in one row
         # (a tail wider than the row block is valid for the unfolded
         # chain, which handles n < hist).  A shape-only trace surfaces
-        # any such mismatch NOW as a clean "incompatible" error that the
-        # CLI's auto-fold path can fall back from.
+        # any such mismatch NOW as a clean "incompatible" error.
         if fold > 1:
             try:
                 carry_shape = jax.eval_shape(
@@ -171,293 +160,6 @@ class FoldedChain:
 
     # ------------------------------------------------------------------ step
 
-    def _fused_pre_folded(self, raw_rows, carry, new):
-        """Format convert (cs16: in-register from the packed wire) + DC +
-        IQ-apply + pre-NCO as one Pallas pass over (R, n_sub) rows (full
-        8-sublane occupancy — the point of folding).  Runs the exact
-        recurrence from ZERO y-state; the omitted start * a^(k+1) term is
-        linear through IQ and the rotation, added afterwards (same design
-        as the sharded fused pre-stage).  Takes the RAW wire rows; the
-        small slices the stitching needs (per-row last samples, the IQ
-        estimator prefix) are converted in XLA."""
-        from iq_tool_tpu.ops import banded, convert, pallas_kernels
-        lc = self.local
-        cfg = lc.cfg
-        if not (banded._on_tpu() or _FUSED_INTERPRET):
-            return None
-        if pallas_kernels.dc_geometry(self.rows, lc.n_in) is None:
-            return None
-        n = lc.n_in
-        items = lc.fmt_in.items_per_frame
-        a_real = 1.0 - lc.dc_alpha
-        apow = np.power(a_real, np.arange(1, n + 1),
-                        dtype=np.float64).astype(np.float32)
-        a_l = jnp.float32(a_real ** n)
-
-        import os
-        # same measured gate as Chain._fused_pre: iq_correction + an
-        # FFT-path filter + wire input trips a pathological XLA schedule
-        skip_wire = (os.environ.get("IQTOOL_DISABLE_WIRE_INPUT")
-                     or (cfg.iq_correction and lc._has_fft_filter))
-        packed = (None if skip_wire
-                  else convert.wire_pack(raw_rows, lc.fmt_in))
-        wire, kind = packed if packed is not None else (None, "cs16")
-        xr = xi = None
-        if wire is None:
-            xr, xi = convert.to_planar(raw_rows, lc.fmt_in, cfg.gain)
-
-        def slice_planes(sl_rows):
-            """Convert a (R-row, item-sliced) view of the raw wire."""
-            return convert.to_planar(sl_rows, lc.fmt_in, cfg.gain)
-
-        # per-row LAST input sample -> shifted x_prev per row + dc carry
-        lr, li = slice_planes(raw_rows[:, -items:])
-        xpr, cxr = self._shift_rows(lr, carry["dc"].xr_prev[:, None])
-        xpi, cxi = self._shift_rows(li, carry["dc"].xi_prev[:, None])
-
-        iqf = None
-        if cfg.iq_correction:
-            # estimator window: row 0's first IQ_FFT_SIZE DC'd samples —
-            # row 0's start IS the carry, so this is exact
-            nf = C.IQ_FFT_SIZE
-            row0 = raw_rows.reshape(self.channels, self.fold,
-                                    n * items)[:, 0, :nf * items]
-            xr0, xi0 = slice_planes(row0)
-            st = carry["dc"]
-            seg_r, _, _ = dc_block._apply_plane(xr0, st.xr_prev, st.yr_prev,
-                                                lc.dc_alpha)
-            seg_i, _, _ = dc_block._apply_plane(xi0, st.xi_prev, st.yi_prev,
-                                                lc.dc_alpha)
-            new["iq"] = iq_balance.maybe_update_planar(
-                seg_r, seg_i, carry["iq"], self.local.iq_interval,
-                advance_samples=self.n_in)
-            iqf = new["iq"].factors
-
-        dth = int(lc.dtheta_pre)
-        phase = None
-        if dth:
-            phase = self._row_phases(carry["nco_pre"], n, dth)
-        st4 = jnp.stack([xpr[:, 0], xpi[:, 0],
-                         jnp.zeros_like(xpr[:, 0]),
-                         jnp.zeros_like(xpi[:, 0])], axis=-1)
-        res = pallas_kernels.dc_block_apply(
-            xr, xi, st4,
-            lc.dc_alpha, self._rep(iqf) if iqf is not None else None,
-            phase[:, None] if phase is not None else None, dth,
-            interpret=_FUSED_INTERPRET, wire_i32=wire,
-            wire_norm=lc.fmt_in.normalizer, wire_gain=cfg.gain,
-            wire_kind=kind)
-        if res is None:
-            if cfg.iq_correction:
-                del new["iq"]
-            return None
-        yr, yi, st4n = res
-        start_r, cyr = self._compose_dc_starts(st4n[:, 2], carry["dc"].yr_prev,
-                                               a_l)
-        start_i, cyi = self._compose_dc_starts(st4n[:, 3], carry["dc"].yi_prev,
-                                               a_l)
-        dr = start_r[:, None] * apow[None, :]
-        di = start_i[:, None] * apow[None, :]
-        if iqf is not None:
-            dr, di = iq_balance.apply_planar(dr, di, self._rep(iqf))
-        if dth:
-            dr, di, _ = nco.apply_planar(dr, di, phase, lc.dtheta_pre)
-            new["nco_pre"] = (carry["nco_pre"]
-                              + jnp.uint32(self.n_in & 0xFFFFFFFF)
-                              * jnp.uint32(dth))
-        yr = yr + dr
-        yi = yi + di
-        new["dc"] = dc_block.PlanarDcState(cxr[:, 0], cxi[:, 0], cyr, cyi)
-        return yr, yi
-
-    def _dc_stage0_consts(self):
-        """E / D_tail / W_head for the DC-fused folded stage 0 (see
-        _wire_stage0_dc) — the shared design-time math lives in
-        resample.dc_stage0_consts (also used by the sharded twin)."""
-        from iq_tool_tpu.ops import resample
-        lc = self.local
-        return resample.dc_stage0_consts(
-            lc.resampler.stages[0], lc.n_in, lc.dc_alpha,
-            int(lc.dtheta_pre))
-
-    def _wire_stage0_dc(self, raw_rows, carry, new):
-        """DC-fused folded stage 0: the whole pre-stage (wire decode +
-        DC recurrence + NCO) runs in the stage-0 kernel's prologue
-        (pallas_kernels.banded_apply_dc) over the folded rows, and the
-        fold stitching happens POST-kernel through linearity:
-
-        * the kernel runs each row's DC from ZERO y-state with the exact
-          per-row x_prev (known from the raw wire); the missing
-          start·a^(k+1) term, composed sequentially across rows exactly
-          like _fused_pre_folded, is linear through the NCO rotation AND
-          through stage 0's banded map — so it lands on the OUTPUT as
-          z_row·E with E a design-time constant (cheaper than the
-          input-rate correction the unfused path pays);
-        * row r's window context (the previous row's processed tail) is
-          only known post-kernel, so rows 1..F-1 run with ZERO context
-          and the head windows get the true tail through W_head (one
-          tiny exact matmul) afterwards;
-        * the kernel's processed-tail output (exact regardless of the
-          window context) is corrected by z_row·D_tail and becomes both
-          the W_head operand and the next step's stage state.
-
-        Returns (yr, yi, (cr, ci)) or None; updates new["dc"].  The
-        nco_pre carry advance is left to the caller's wire_rs branch."""
-        import os
-
-        from iq_tool_tpu.ops import banded, pallas_kernels
-        from iq_tool_tpu.pipeline import chain as chain_mod
-        lc = self.local
-        cfg = lc.cfg
-        if (cfg.iq_correction or lc.pre_filter is not None
-                or lc.resampler is None):
-            return None
-        if (os.environ.get("IQTOOL_DISABLE_WIRE_INPUT")
-                or os.environ.get("IQTOOL_DISABLE_DC_STAGE0")):
-            return None
-        interp = _FUSED_INTERPRET or chain_mod._FUSED_POST_INTERPRET
-        if not (banded._on_tpu() or interp):
-            return None
-        stages = lc.resampler.stages
-        if not stages or not hasattr(stages[0], "stride"):
-            return None
-        packed = convert.wire_pack(raw_rows, lc.fmt_in)
-        if packed is None:
-            return None
-        wire, kind = packed
-        st0 = stages[0]
-        hist = st0.hist
-        if pallas_kernels.plan(st0.stride, hist, st0._a.shape[1],
-                               wire.shape[-1] // st0.stride, self.rows,
-                               dc=True) is None:
-            return None
-        n = lc.n_in
-        items = lc.fmt_in.items_per_frame
-        # per-row x_prev: the preceding RAW sample (pre-DC, pre-NCO)
-        lr, li = convert.to_planar(raw_rows[:, -items:], lc.fmt_in,
-                                   cfg.gain)
-        xpr, cxr = self._shift_rows(lr, carry["dc"].xr_prev[:, None])
-        xpi, cxi = self._shift_rows(li, carry["dc"].xi_prev[:, None])
-        dth = int(lc.dtheta_pre)
-        ph = (self._row_phases(carry["nco_pre"], n, lc.dtheta_pre)
-              if dth else None)
-        # window context: channel row 0 takes the TRUE carried tail,
-        # rows 1..F-1 zeros (head-corrected below)
-        cr0, ci0 = carry["rs"][0]
-        zeros_ctx = jnp.zeros((self.channels, self.fold, hist),
-                              jnp.float32)
-        st_r = zeros_ctx.at[:, 0].set(cr0).reshape(self.rows, hist)
-        st_i = zeros_ctx.at[:, 0].set(ci0).reshape(self.rows, hist)
-        st4 = jnp.stack([xpr[:, 0], xpi[:, 0],
-                         jnp.zeros_like(xpr[:, 0]),
-                         jnp.zeros_like(xpi[:, 0])], axis=-1)
-        res, tr, ti, st4n = pallas_kernels.banded_apply_dc(
-            st_r, st_i, st4, lc.dc_alpha, st0._a, st0._a_i,
-            st0.stride, hist, wire_i32=wire,
-            wire_norm=lc.fmt_in.normalizer, wire_gain=cfg.gain,
-            nco_dtheta=dth,
-            nco_phase=ph[:, None] if dth else None,
-            pack_fmt=None, interpret=interp, wire_kind=kind)
-        yr, yi = res
-        e_r, e_i, dt_r, dt_i, w_r, w_i, n_headg = self._dc_stage0_consts()
-        # correction 1: true per-row DC starts (sequential compose, same
-        # as _fused_pre_folded), rotated by the row phase, times E
-        a_l = jnp.float32((1.0 - lc.dc_alpha) ** n)
-        start_r, cyr = self._compose_dc_starts(
-            st4n[:, 2], carry["dc"].yr_prev, a_l)
-        start_i, cyi = self._compose_dc_starts(
-            st4n[:, 3], carry["dc"].yi_prev, a_l)
-        if dth:
-            z_r, z_i, _ = nco.apply_planar(start_r[:, None],
-                                           start_i[:, None], ph, 0)
-            z_r, z_i = z_r[:, 0], z_i[:, 0]
-        else:
-            z_r, z_i = start_r, start_i
-        yr = yr + (z_r[:, None] * e_r[None, :]
-                   - z_i[:, None] * e_i[None, :])
-        yi = yi + (z_r[:, None] * e_i[None, :]
-                   + z_i[:, None] * e_r[None, :])
-        # true processed tails (the kernel's are zero-start)
-        tr = tr + (z_r[:, None] * dt_r[None, :]
-                   - z_i[:, None] * dt_i[None, :])
-        ti = ti + (z_r[:, None] * dt_i[None, :]
-                   + z_i[:, None] * dt_r[None, :])
-        # correction 2: rows 1..F-1 ran with zero window context — add
-        # the previous row's true tail through the head-window matrix.
-        # Exact (HIGHEST) matmuls: tiny, and the term carries
-        # IIR-composed state.
-        t_r = tr.reshape(self.channels, self.fold, hist)
-        t_i = ti.reshape(self.channels, self.fold, hist)
-        prev_r = jnp.concatenate(
-            [jnp.zeros_like(t_r[:, :1]), t_r[:, :-1]],
-            axis=1).reshape(self.rows, hist)
-        prev_i = jnp.concatenate(
-            [jnp.zeros_like(t_i[:, :1]), t_i[:, :-1]],
-            axis=1).reshape(self.rows, hist)
-        mm = lambda a, b: jnp.matmul(a, b,
-                                     precision=jax.lax.Precision.HIGHEST)
-        h_r = mm(prev_r, w_r) - mm(prev_i, w_i)
-        h_i = mm(prev_r, w_i) + mm(prev_i, w_r)
-        yr = yr.at[:, :n_headg].add(h_r)
-        yi = yi.at[:, :n_headg].add(h_i)
-        new["dc"] = dc_block.PlanarDcState(cxr[:, 0], cxi[:, 0], cyr, cyi)
-        return yr, yi, (t_r[:, -1], t_i[:, -1])
-
-    def _wire_stage0(self, raw_rows, carry, pack0=None):
-        """Run the FIRST resampler stage straight off the packed cs16
-        wire (nothing precedes the resampler): the kernel de-interleaves
-        and normalizes in-register, so the conversion pass never touches
-        HBM (FoldedChain twin of Chain._fused_wire_resample's input
-        half).  With ``pack0`` (single-stage cascade, nothing after) the
-        SAME kernel also quantizes back to the wire in its epilogue.
-        Returns (out0, out1, stage0 carry, packed) or None — packed
-        means out0 is the int32 wire and out1 is None."""
-        import os
-
-        from iq_tool_tpu.ops import banded, pallas_kernels
-        from iq_tool_tpu.pipeline import chain as chain_mod
-        lc = self.local
-        if os.environ.get("IQTOOL_DISABLE_WIRE_INPUT"):
-            return None
-        interp = _FUSED_INTERPRET or chain_mod._FUSED_POST_INTERPRET
-        if not (banded._on_tpu() or interp):
-            return None
-        stages = lc.resampler.stages
-        if not stages or not hasattr(stages[0], "stride"):
-            return None
-        packed = convert.wire_pack(raw_rows, lc.fmt_in)
-        if packed is None:
-            return None
-        wire, kind = packed
-        st0 = stages[0]
-        if pallas_kernels.plan(st0.stride, st0.hist, st0._a.shape[1],
-                               wire.shape[-1] // st0.stride,
-                               self.rows) is None:
-            return None
-        n_sub = lc.n_in
-        dth = int(lc.dtheta_pre)
-        pacc = (self._row_phases(carry["nco_pre"], n_sub,
-                                 lc.dtheta_pre)[:, None] if dth else None)
-        items = lc.fmt_in.items_per_frame
-        lr, li = convert.to_planar(raw_rows[:, -st0.hist * items:],
-                                   lc.fmt_in, lc.cfg.gain)
-        if dth:
-            # the carried history is the POST-shift signal: rotate each
-            # row's stored tail at its global indices
-            ph_tail = (pacc[:, 0]
-                       + jnp.uint32((n_sub - st0.hist) & 0xFFFFFFFF)
-                       * jnp.uint32(dth))
-            lr, li, _ = nco.apply_planar(lr, li, ph_tail, lc.dtheta_pre)
-        ur, cr = self._shift_rows(lr, carry["rs"][0][0])
-        ui, ci = self._shift_rows(li, carry["rs"][0][1])
-        res = pallas_kernels.banded_apply(
-            ur, ui, None, None, st0._a, st0._a_i, st0.stride, st0.hist,
-            interpret=interp, pack_fmt=pack0, wire_i32=wire,
-            wire_norm=lc.fmt_in.normalizer, wire_gain=lc.cfg.gain,
-            nco_dtheta=dth, nco_phase=pacc, wire_kind=kind)
-        return (res, None, (cr, ci), True) if pack0 else (*res, (cr, ci),
-                                                          False)
-
     def _dc_folded_plane(self, x, x_prev_use, carry_y, alpha):
         """Exact cross-row first-order IIR on one real plane (XLA path)."""
         n = x.shape[-1]
@@ -473,7 +175,7 @@ class FoldedChain:
     def _agc_folded_gains(self, xr, xi, state, cfg):
         """(gains (R, n_seg) or (R, 1), seg, new_state): the per-row gain
         schedule with the gain scan run over the global (cross-row) time
-        order — shared by the XLA apply and the fused post kernel."""
+        order."""
         if cfg.profile == "digital":
             pk = jnp.sqrt(jnp.max((xr * xr + xi * xi)
                                   .reshape(self.channels, -1), axis=-1))
@@ -514,112 +216,25 @@ class FoldedChain:
             yi = jnp.concatenate([yi, xi[:, n_seg * seg:] * g_last], -1)
         return yr, yi, new_state
 
-    def _fused_post_folded(self, xr, xi, carry, new):
-        """Fused post-NCO + AGC apply + cs16 quantize over the (R, n_sub)
-        rows (see Chain._fused_post); per-row NCO phases are the exact
-        closed-form offsets."""
-        import os
-
-        from iq_tool_tpu.ops import banded, pallas_kernels
-        from iq_tool_tpu.pipeline import chain as chain_mod
-        lc = self.local
-        if not pallas_kernels.packable_out(lc.fmt_out.name):
-            return None
-        if os.environ.get("IQTOOL_DISABLE_POST_KERNEL"):
-            return None
-        interp = _FUSED_INTERPRET or chain_mod._FUSED_POST_INTERPRET
-        if not (banded._on_tpu() or interp):
-            return None
-        dth = int(lc.dtheta_post)
-        cfg_agc = lc.agc_cfg
-        if not dth and cfg_agc is None:
-            return None
-        n = xr.shape[-1]
-        new_agc = None
-        if cfg_agc is not None:
-            if (cfg_agc.profile != "digital"
-                    and agc_ops.rms_params(cfg_agc, n)[1] != C.AGC_SEGMENT):
-                return None
-            gains, seg, new_agc = self._agc_folded_gains(
-                xr, xi, carry["agc"], cfg_agc)
-        else:
-            gains, seg = jnp.ones((self.rows, 1), jnp.float32), 0
-        pacc = (self._row_phases(carry["nco_post"], lc.n_out,
-                                 lc.dtheta_post)[:, None] if dth else None)
-        res = pallas_kernels.post_apply(xr, xi, gains, seg, pacc, dth,
-                                        interpret=interp,
-                                        out_fmt=lc.fmt_out.name)
-        if res is None:
-            return None
-        if new_agc is not None:
-            new["agc"] = new_agc
-        if dth:
-            new["nco_post"] = (carry["nco_post"]
-                               + jnp.uint32(self.n_out & 0xFFFFFFFF)
-                               * lc.dtheta_post)
-        return convert.packed_to_wire(res, lc.fmt_out)
-
     def _step(self, carry: dict, raw: jnp.ndarray, reset: jnp.ndarray):
         lc = self.local
         cfg = lc.cfg
         carry = jax.lax.cond(reset, lc._reset_carry, lambda c: c, carry)
         new = dict(carry)
 
-        raw_rows = self._rows(raw)
+        xr, xi = convert.to_planar(self._rows(raw), self.fmt_in, cfg.gain)
         n = lc.n_in
-
-        fused = None
-        wire_rs = None
         if cfg.dc_block:
-            res_dc = self._wire_stage0_dc(raw_rows, carry, new)
-            if res_dc is not None:
-                # stage 0 consumed the wire AND ran the pre-stage;
-                # matches the wire_rs tuple shape (planes, carry, packed)
-                wire_rs = (res_dc[0], res_dc[1], res_dc[2], False)
-            else:
-                fused = self._fused_pre_folded(raw_rows, carry, new)
-        elif (not cfg.iq_correction
-                and lc.pre_filter is None and lc.resampler is not None):
-            import os as _os
-            from iq_tool_tpu.ops import pallas_kernels as _pk
-            pack0 = (lc.fmt_out.name if (
-                     len(lc.resampler.stages) == 1
-                     and lc.post_filter is None
-                     and int(lc.dtheta_post) == 0 and lc.agc_cfg is None
-                     and _pk.packable_out(lc.fmt_out.name)
-                     and not _os.environ.get("IQTOOL_DISABLE_PACK_OUT"))
-                     else None)
-            wire_rs = self._wire_stage0(raw_rows, carry, pack0)
-        if fused is not None:
-            xr, xi = fused
-        elif wire_rs is not None:
-            if int(lc.dtheta_pre) != 0:
-                new["nco_pre"] = (carry["nco_pre"]
-                                  + jnp.uint32(self.n_in & 0xFFFFFFFF)
-                                  * lc.dtheta_pre)
-            if wire_rs[3]:
-                # single-stage: wire in AND out in ONE kernel
-                new["rs"] = (wire_rs[2],)
-                w = convert.packed_to_wire(wire_rs[0], lc.fmt_out)
-                return new, self._unrows(w)
-            xr, xi = wire_rs[0], wire_rs[1]
-        else:
-            xr, xi = convert.to_planar(raw_rows, self.fmt_in, cfg.gain)
-            if cfg.dc_block:
-                xpr, cxr = self._shift_rows(xr[:, -1:],
-                                            carry["dc"].xr_prev[:, None])
-                xpi, cxi = self._shift_rows(xi[:, -1:],
-                                            carry["dc"].xi_prev[:, None])
-                yr, cyr = self._dc_folded_plane(xr, xpr[:, 0],
-                                                carry["dc"].yr_prev,
-                                                lc.dc_alpha)
-                yi, cyi = self._dc_folded_plane(xi, xpi[:, 0],
-                                                carry["dc"].yi_prev,
-                                                lc.dc_alpha)
-                xr, xi = yr, yi
-                new["dc"] = dc_block.PlanarDcState(cxr[:, 0], cxi[:, 0],
-                                                   cyr, cyi)
-        if fused is None and wire_rs is None and cfg.iq_correction:
+            xpr, cxr = self._shift_rows(xr[:, -1:],
+                                        carry["dc"].xr_prev[:, None])
+            xpi, cxi = self._shift_rows(xi[:, -1:],
+                                        carry["dc"].xi_prev[:, None])
+            xr, cyr = self._dc_folded_plane(xr, xpr[:, 0],
+                                            carry["dc"].yr_prev, lc.dc_alpha)
+            xi, cyi = self._dc_folded_plane(xi, xpi[:, 0],
+                                            carry["dc"].yi_prev, lc.dc_alpha)
+            new["dc"] = dc_block.PlanarDcState(cxr[:, 0], cxi[:, 0], cyr, cyi)
+        if cfg.iq_correction:
             nf = C.IQ_FFT_SIZE
             seg_r = xr.reshape(self.channels, self.fold, n)[:, 0, :nf]
             seg_i = xi.reshape(self.channels, self.fold, n)[:, 0, :nf]
@@ -628,7 +243,7 @@ class FoldedChain:
                 advance_samples=self.n_in)
             xr, xi = iq_balance.apply_planar(xr, xi,
                                              self._rep(new["iq"].factors))
-        if fused is None and wire_rs is None and int(lc.dtheta_pre) != 0:
+        if int(lc.dtheta_pre) != 0:
             phase = self._row_phases(carry["nco_pre"], n, lc.dtheta_pre)
             xr, xi, _ = nco.apply_planar(xr, xi, phase, lc.dtheta_pre)
             new["nco_pre"] = (carry["nco_pre"]
@@ -641,74 +256,21 @@ class FoldedChain:
             xr, xi, _, _ = lc.pre_filter.apply_planar(xr, xi, ur, ui)
             new["pre_f"] = (cr, ci)
         if lc.resampler:
-            import os as _os
-
-            from iq_tool_tpu.pipeline import chain as chain_mod
-            from iq_tool_tpu.ops import pallas_kernels as _pk
-            pack_last = (lc.post_filter is None
-                         and int(lc.dtheta_post) == 0
-                         and lc.agc_cfg is None
-                         and _pk.packable_out(lc.fmt_out.name)
-                         and not _os.environ.get("IQTOOL_DISABLE_PACK_OUT"))
-            interp = _FUSED_INTERPRET or chain_mod._FUSED_POST_INTERPRET
             new_rs = []
-            stages = lc.resampler.stages
-            start = 0
-            if wire_rs is not None:
-                new_rs.append(wire_rs[2])   # stage 0 consumed the wire
-                start = 1
-            for si in range(start, len(stages)):
-                stage, st = stages[si], carry["rs"][si]
+            for stage, st in zip(lc.resampler.stages, carry["rs"]):
                 h = st[0].shape[-1]
                 ur, cr = self._shift_rows(xr[:, -h:], st[0])
                 ui, ci = self._shift_rows(xi[:, -h:], st[1])
-                if (pack_last and si == len(stages) - 1
-                        and hasattr(stage, "apply_planar_packed")):
-                    # last stage quantizes + interleaves to the wire in
-                    # its kernel epilogue (see Chain._step)
-                    wire_pk, _, _ = stage.apply_planar_packed(
-                        xr, xi, ur, ui, interpret=interp,
-                        out_fmt=lc.fmt_out.name)
-                    if wire_pk is not None:
-                        # the folded carry is the per-channel LAST-ROW
-                        # tail from _shift_rows, not the per-row tails
-                        new_rs.append((cr, ci))
-                        new["rs"] = tuple(new_rs)
-                        return new, self._unrows(
-                            convert.packed_to_wire(wire_pk, lc.fmt_out))
                 xr, xi, _, _ = stage.apply_planar(xr, xi, ur, ui)
                 new_rs.append((cr, ci))
             new["rs"] = tuple(new_rs)
         if lc.post_filter:
-            import os as _os
-
-            from iq_tool_tpu.pipeline import chain as chain_mod
             b = lc.post_filter.block
             ur, cr = self._shift_rows(xr[:, -b:], carry["post_f"][0])
             ui, ci = self._shift_rows(xi[:, -b:], carry["post_f"][1])
-            from iq_tool_tpu.ops import pallas_kernels as _pk
-            if (int(lc.dtheta_post) == 0 and lc.agc_cfg is None
-                    and _pk.packable_out(lc.fmt_out.name)
-                    and not _os.environ.get("IQTOOL_DISABLE_PACK_OUT")):
-                # the filter is the last op before the convert: quantize
-                # + interleave in its kernel epilogue (see Chain._step)
-                res = lc.post_filter.apply_planar_packed(
-                    xr, xi, ur, ui,
-                    interpret=(_FUSED_INTERPRET
-                               or chain_mod._FUSED_POST_INTERPRET),
-                    out_fmt=lc.fmt_out.name)
-                if res is not None:
-                    wire_pk = res[0]
-                    new["post_f"] = (cr, ci)
-                    return new, self._unrows(
-                        convert.packed_to_wire(wire_pk, lc.fmt_out))
             xr, xi, _, _ = lc.post_filter.apply_planar(xr, xi, ur, ui)
             new["post_f"] = (cr, ci)
-        fused_out = self._fused_post_folded(xr, xi, carry, new)
-        if fused_out is not None:
-            return new, self._unrows(fused_out)
-        # digital AGC: peak measured pre-NCO, exactly as the fused path
-        # does (see Chain._step) — pins the fused/XLA lock decisions
+        # digital AGC: peak measured pre-NCO, as Chain._step does
         dig_gain = None
         if lc.agc_cfg is not None and lc.agc_cfg.profile == "digital":
             dig_gain, _, new["agc"] = self._agc_folded_gains(

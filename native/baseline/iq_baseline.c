@@ -191,7 +191,7 @@ static double now_sec(void) {
  * "agc:<profile>:<gainfile>:<outfile>" feeds a deterministic AM tone at
  * the OUTPUT rate through the reference AGC contract (SURVEY.md 2b /
  * agc.c:38-68, 117-221) implemented the reference's way — a per-SAMPLE
- * one-pole RMS loop for dx/local (the TPU side aggregates it at
+ * one-pole RMS loop for dx/local (the JAX chain aggregates it at
  * AGC_SEGMENT granularity, ops/agc.py) and the per-block peak-lock
  * state machine for digital — then writes a float32 per-sample gain
  * trace plus the cs16 output so tests/test_c_golden.py can bound the

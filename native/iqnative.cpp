@@ -1,7 +1,7 @@
 // iqnative: native host-runtime primitives for iq_tool_tpu.
 //
 // The reference implements its runtime (queues, rings, byte packing) in
-// C99 on pthreads; the TPU framework keeps the compute path in XLA but
+// C99 on pthreads; this framework keeps the compute path in XLA but
 // uses this library for the host-side hot paths, where Python-level
 // byte handling would bottleneck multi-GB/s streams:
 //

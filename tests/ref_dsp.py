@@ -102,3 +102,43 @@ def snr_db(ref: np.ndarray, test: np.ndarray) -> float:
     if p_err == 0:
         return np.inf
     return float(10 * np.log10(p_sig / p_err))
+
+
+def tone_snr(z: np.ndarray, rate: float, half_width: int = 200):
+    """(peak frequency Hz, tone SNR dB) of a complex tone record: Hann
+    window, the +-half_width bins around the spectral peak are signal,
+    every other bin is noise, spurs and images."""
+    z = np.asarray(z, np.complex128)
+    p = np.abs(np.fft.fftshift(np.fft.fft(z * np.hanning(len(z))))) ** 2
+    f = np.fft.fftshift(np.fft.fftfreq(len(z), 1.0 / rate))
+    k = int(np.argmax(p))
+    sig = p[max(0, k - half_width):k + half_width + 1].sum()
+    return float(f[k]), float(10 * np.log10(sig / max(p.sum() - sig, 1e-30)))
+
+
+def parity_snr(got: np.ndarray, want: np.ndarray) -> float:
+    """SNR (dB) of one quantized record against another (inf if equal)."""
+    diff = got.astype(np.float64) - want.astype(np.float64)
+    if not diff.any():
+        return float("inf")
+    return float(10 * np.log10((want.astype(np.float64) ** 2).mean()
+                               / (diff ** 2).mean()))
+
+
+def assert_parity(got: np.ndarray, want: np.ndarray, tag="") -> float:
+    """Quantized-output parity between two runs of the same chain: more
+    than 60 dB SNR (the chain contract) plus a hard code cap.  The DC IIR
+    and the AGC gain loop amplify legitimate f32 association deltas, so
+    exact equality is not the contract.  The cap scales with output
+    hotness: the AGC normalizes toward full scale, so the same ~2e-3
+    single-sample relative bound is ~128 codes there.  Returns the SNR
+    (inf when identical)."""
+    assert got.shape == want.shape, (tag, got.shape, want.shape)
+    snr = parity_snr(got, want)
+    assert snr > 60.0, (tag, snr)
+    diff = got.astype(np.float64) - want.astype(np.float64)
+    cap = 4e-3 * max(np.abs(want).max(), 8192)
+    assert np.abs(diff).max() <= cap, (tag, np.abs(diff).max(), cap)
+    assert (np.abs(diff) > cap / 4).mean() < 1e-3, (
+        tag, (np.abs(diff) > cap / 4).mean())
+    return snr

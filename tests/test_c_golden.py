@@ -11,7 +11,7 @@ implementation residual floor.
 
 Bit-identity is impossible by construction (the C program is an
 independent implementation: recursive float NCO vs exact uint32 phase,
-its own Kaiser polyphase vs banded MXU matmuls, 55 fixed FIR taps vs
+its own Kaiser polyphase vs banded matmuls, 55 fixed FIR taps vs
 estimate_taps), so the contract is agreement of the *transfer function*:
 after integer-lag alignment and a single complex gain fit, the residual
 between the two outputs must sit below the chains' own design floor.
@@ -110,7 +110,7 @@ def test_chain_matches_c_binary(c_binary, tmp_path):
     c_body = c_y[skip:len(c_y) - skip]
     t_body = t_y[skip:len(t_y) - skip]
     f_expect = TONE_HZ + SHIFT_HZ
-    for name, body in (("C", c_body), ("tpu", t_body)):
+    for name, body in (("C", c_body), ("jax", t_body)):
         peak_hz, amp, snr = _tone_metrics(body)
         df = RATE_OUT / len(body)
         assert abs(peak_hz - f_expect) < 4 * df, (name, peak_hz)
@@ -138,15 +138,14 @@ def test_chain_matches_c_binary(c_binary, tmp_path):
 
 
 def test_notch_chain_matches_c_binary(c_binary, tmp_path):
-    """DFT-engine golden partner: two-tone input through
+    """FFT-engine golden partner: two-tone input through
     cs16 -> DC -> shift -100 kHz -> resample -> |f|<=5 kHz notch -> cs16.
     Tone A (102 kHz) lands at 2 kHz inside the notch; tone B (300 kHz)
     lands at 200 kHz and passes.  Both implementations must suppress A
     by >= 55 dB relative to B, and B must come through at unity gain.
     The C side uses an independent 1101-tap spectral-inversion design;
-    the tpu side's 2175-tap stop-range runs on the DFT overlap-save
-    engine (num_taps > 2048) — the same engine the fused Pallas kernel
-    accelerates on hardware."""
+    the JAX side's 2175-tap stop-range runs on the FFT overlap-save
+    engine (num_taps > 2048)."""
     tone_a, tone_b = 102_000.0, 300_000.0
     c_out_path = str(tmp_path / "c_notch.raw")
     r = subprocess.run(
@@ -189,7 +188,7 @@ def test_notch_chain_matches_c_binary(c_binary, tmp_path):
         amp_b = np.sqrt(pb / (len(z) * np.sum(w ** 2)))
         return pa, pb, amp_b
 
-    for name, y in (("C", c_y), ("tpu", t_y)):
+    for name, y in (("C", c_y), ("jax", t_y)):
         pa, pb, amp_b = band_powers(y)
         supp = 10.0 * np.log10(pb / max(pa, 1e-30))
         assert supp > 55.0, (name, supp)              # notch depth
@@ -347,7 +346,7 @@ def test_cu8_chain_matches_c_binary(c_binary, tmp_path):
     c_body = c_y[skip:len(c_y) - skip]
     t_body = t_y[skip:len(t_y) - skip]
     f_expect = TONE_HZ + SHIFT_HZ
-    for name, body in (("C", c_body), ("tpu", t_body)):
+    for name, body in (("C", c_body), ("jax", t_body)):
         peak_hz, amp, snr = _tone_metrics(body)
         df = RATE_OUT / len(body)
         assert abs(peak_hz - f_expect) < 4 * df, (name, peak_hz)

@@ -1,6 +1,7 @@
 """DC blocker: matches the scalar IIR recurrence, removes DC, streams."""
 
 import numpy as np
+import pytest
 
 from iq_tool_tpu.ops import dc_block
 
@@ -55,3 +56,44 @@ def test_reset():
         np.ones(3).astype(np.complex64), np.ones(3).astype(np.complex64))
     r = dc_block.reset(state)
     assert np.all(np.asarray(r.x_prev) == 0) and np.all(np.asarray(r.y_prev) == 0)
+
+
+# (block length, blocks per stream, sample rate): tiled blocks (tile 256
+# and 250), blocks at or under one tile (flat associative scan), and a
+# prime length with no tile divisor >= 32 (flat scan over a long block)
+SCAN_CASES = [
+    (4096, 3, 2_048_000.0),
+    (1000, 4, 2_048_000.0),
+    (256, 5, 48_000.0),
+    (31, 6, 48_000.0),
+    (4099, 2, 2_048_000.0),
+    (16384, 2, 1_000.0),
+    (262144, 1, 2_048_000.0),
+]
+
+
+@pytest.mark.parametrize("n,blocks,rate", SCAN_CASES)
+def test_two_level_scan_matches_recurrence(rng, n, blocks, rate):
+    """The tiled prefix (triangular tile matmul + cross-tile scan)
+    streamed over several blocks equals the scalar float64 recurrence
+    on the whole stream."""
+    alpha = dc_block.alpha_for_rate(rate)
+    x = (rng.standard_normal((2, n * blocks))
+         + 1j * rng.standard_normal((2, n * blocks))).astype(np.complex64)
+    state = dc_block.init(2)
+    parts = []
+    for b in range(blocks):
+        y, state = dc_block.apply(x[:, b * n:(b + 1) * n], state, alpha)
+        parts.append(np.asarray(y))
+    got = np.concatenate(parts, axis=-1)
+    for c in range(2):
+        want = _scalar_ref(x[c].astype(np.complex128), alpha)
+        np.testing.assert_allclose(got[c], want, atol=5e-4)
+
+
+@pytest.mark.parametrize("n,tile", [(4096, 256), (1000, 250), (256, 256),
+                                    (4099, 0), (64, 64), (96, 96)])
+def test_tile_size(n, tile):
+    """The scan tiles by the largest divisor of n in [32, 256] (0: none,
+    the flat associative scan runs instead)."""
+    assert dc_block._tile_size(n) == tile

@@ -52,7 +52,7 @@ def test_fir_fft_agree(rng):
 def test_fft_banded_exec_matches_dft_exec(rng):
     """The fft method's banded-matmul execution engine (<=2048 taps) is
     exact linear convolution — identical within float tolerance to the
-    true DFT overlap-save engine on the same filter/state geometry."""
+    FFT overlap-save engine on the same filter/state geometry."""
     taps = (rng.standard_normal(301) + 1j * rng.standard_normal(301)) \
         .astype(np.complex64)
     taps /= np.abs(taps).sum()
@@ -61,40 +61,13 @@ def test_fft_banded_exec_matches_dft_exec(rng):
     f = filters.StreamingFilter(taps, "fft")
     assert f._exec_banded
     y_banded = _run_stream(f, x, max(f.block, 2048))
-    f._exec_banded = False          # force the DFT overlap-save engine
+    f._exec_banded = False          # force the FFT overlap-save engine
     y_dft = _run_stream(f, x, max(f.block, 2048))
     np.testing.assert_allclose(y_banded, y_dft, atol=5e-4)
 
 
-@pytest.mark.parametrize("num_taps,user_fft", [
-    (2175, None),    # auto block 8192: taps-1 <= b/2 -> 3/4-window advance
-    (5000, 16384),   # forced block 8192: taps-1 > b/2 -> half-window advance
-])
-def test_osfft_kernel_matches_dft_engine(rng, monkeypatch, num_taps,
-                                         user_fft):
-    """The fused Pallas overlap-save kernel (interpret mode) against the
-    XLA DFT engine, including the ragged re-anchored final window."""
-    monkeypatch.setattr(filters, "_OSFFT_INTERPRET", True)
-    taps = rng.standard_normal(num_taps).astype(np.complex64)
-    taps /= np.abs(taps).sum()
-    f = filters.StreamingFilter(taps, "fft", user_fft)
-    assert not f._exec_banded
-    b = f.block
-    assert b == 8192
-    n = 2 * b + 1000                       # ragged tail exercised
-    x = (rng.standard_normal((2, n))
-         + 1j * rng.standard_normal((2, n))).astype(np.complex64)
-    state = (rng.standard_normal((2, b)).astype(np.float32),
-             rng.standard_normal((2, b)).astype(np.float32))
-    got = f.apply_planar(np.real(x), np.imag(x), *state)
-    monkeypatch.setattr(filters, "_OSFFT_INTERPRET", False)
-    want = f.apply_planar(np.real(x), np.imag(x), *state)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=2e-4)
-
-
 def test_fft_dft_engine_large_taps(rng):
-    """> 2048 taps stays on the DFT engine and still matches lfilter."""
+    """> 2048 taps stays on the FFT engine and still matches lfilter."""
     taps = rng.standard_normal(2501).astype(np.complex64)
     taps /= np.abs(taps).sum()
     x = (rng.standard_normal(16384)
@@ -191,7 +164,7 @@ def test_min_taps_and_odd():
 
 def test_choose_fft_block():
     # filter.c:317-336: next pow2 >= taps-1, doubled if < 2*taps
-    # auto floor is FFT_MIN_BLOCK on TPU-scale batches
+    # auto floor is FFT_MIN_BLOCK for batched device FFTs
     assert fir_design.choose_fft_block(21) == 2048
     assert fir_design.choose_fft_block(129) == 2048
     assert fir_design.choose_fft_block(1024) == 2048
@@ -219,66 +192,44 @@ def test_non_multiple_block_length(rng):
     np.testing.assert_allclose(got, want, atol=5e-4)
 
 
-def test_osfft_kernel_channel_blocking(rng, monkeypatch):
-    """channels % 8 == 0 engages the cb=8 grid path (two grid dims)."""
-    monkeypatch.setattr(filters, "_OSFFT_INTERPRET", True)
-    taps = rng.standard_normal(2175).astype(np.complex64)
+# (taps, user FFT size, block lengths of the stream): the config #4
+# notch (2175 taps, block 8192), framings that are and are not multiples
+# of the FFT block (the resampler's 11907-sample outputs), and a forced
+# FFT size whose block is barely above the tap count
+OVERLAP_SAVE_CASES = [
+    (2175, None, [16384, 16384]),
+    (2175, None, [11907, 11907, 11907]),
+    (2175, None, [8192 + 777, 3 * 8192 // 2]),
+    (2049, None, [10000, 9999]),
+    (2501, None, [16384 + 5]),
+    (5000, 16384, [2 * 8192 + 1000, 8192]),
+    (3000, None, [8192, 24576 + 3]),
+    (1025, 4096, [2048 * 3 + 1, 2048]),
+]
+
+
+@pytest.mark.parametrize("taps_n,user_fft,blocks", OVERLAP_SAVE_CASES)
+def test_overlap_save_matches_convolution(rng, taps_n, user_fft, blocks):
+    """The jnp.fft overlap-save engine over a stream split into the given
+    blocks equals numpy's direct linear convolution of the whole stream
+    (complex taps, two channels, carry threaded between blocks)."""
+    taps = (rng.standard_normal(taps_n)
+            + 1j * rng.standard_normal(taps_n)).astype(np.complex64)
     taps /= np.abs(taps).sum()
-    f = filters.StreamingFilter(taps, "fft")
-    b = f.block
-    n = 3 * b // 2 + 1000
-    xr = rng.standard_normal((8, n)).astype(np.float32)
-    xi = rng.standard_normal((8, n)).astype(np.float32)
-    st = (np.zeros((8, b), np.float32), np.zeros((8, b), np.float32))
-    got = f.apply_planar(xr, xi, *st)
-    monkeypatch.setattr(filters, "_OSFFT_INTERPRET", False)
-    want = f.apply_planar(xr, xi, *st)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=2e-4)
-
-
-def test_osfft_mixed_advance_schedule(rng, monkeypatch):
-    """n that fits one 3/4-advance window PLUS one half-advance window
-    PLUS a ragged tail: all three segments must engage and agree with
-    the XLA DFT engine (the CLI framing n_out=11907 < 3b/2 case)."""
-    monkeypatch.setattr(filters, "_OSFFT_INTERPRET", True)
-    taps = rng.standard_normal(2175).astype(np.complex64)
-    taps /= np.abs(taps).sum()
-    f = filters.StreamingFilter(taps, "fft")
-    b = f.block
-    assert f.osfft_advance == 3 * b // 2
-    for n in (3 * b // 2 + b + 777,   # 3/4 + half + ragged
-              11907,                  # CLI framing: half + ragged only
-              3 * b // 2):            # exactly one 3/4 window
-        xr = rng.standard_normal((2, n)).astype(np.float32)
-        xi = rng.standard_normal((2, n)).astype(np.float32)
-        st = (rng.standard_normal((2, b)).astype(np.float32),
-              rng.standard_normal((2, b)).astype(np.float32))
-        got = f.apply_planar(xr, xi, *st)
-        monkeypatch.setattr(filters, "_OSFFT_INTERPRET", False)
-        want = f.apply_planar(xr, xi, *st)
-        monkeypatch.setattr(filters, "_OSFFT_INTERPRET", True)
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
-                                       atol=2e-4)
-
-
-def test_chain_grows_block_for_osfft_advance(monkeypatch):
-    """A DFT-engine post filter (2175-tap notch at the output rate) must
-    grow the chain block until >= 4 full 3/4-advance windows fit, so the
-    fused kernel engages at the CLI default block (VERDICT r2 item 2).
-    The growth only applies where the kernel can run (TPU / interpret);
-    off-TPU it would cost 8x memory for nothing."""
-    from iq_tool_tpu.pipeline.chain import Chain, ChainConfig
-
-    monkeypatch.setattr(filters, "_OSFFT_INTERPRET", True)
-    cfg = ChainConfig(input_format="cs16", output_format="cs16",
-                      input_rate=2_048_000.0, target_rate=1_488_375.0,
-                      filters=[fir_design.FilterRequest("stop-range",
-                                                        0.0, 10_000.0)],
-                      filter_method="fft")
-    ch = Chain(cfg)
-    f = ch.post_filter
-    assert f is not None and not f._exec_banded
-    assert f.osfft_advance == 3 * f.block // 2
-    assert ch.n_out >= 4 * f.osfft_advance
+    f = filters.StreamingFilter(taps, "fft", user_fft)
+    f._exec_banded = False
+    assert all(n >= f.block for n in blocks)
+    n = sum(blocks)
+    x = (rng.standard_normal((2, n))
+         + 1j * rng.standard_normal((2, n))).astype(np.complex64)
+    state = f.init(2)
+    outs, s = [], 0
+    for b in blocks:
+        y, state = f(x[:, s:s + b], state)
+        outs.append(np.asarray(y))
+        s += b
+    got = np.concatenate(outs, axis=-1)
+    for c in range(2):
+        want = np.convolve(x[c].astype(np.complex128),
+                           taps.astype(np.complex128))[:n]
+        np.testing.assert_allclose(got[c], want, atol=2e-5 * np.sqrt(taps_n))

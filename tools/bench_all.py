@@ -1,7 +1,6 @@
-"""Measure all five BASELINE.json configs on the chip (one JSON line each).
+"""Measure all five BASELINE.json configs on the GPU (one JSON line each).
 
-Timing methodology matches bench.py (see the verify skill's
-"Honest performance measurement"): K chain steps inside one lax.scan,
+Timing methodology matches bench.py: K chain steps inside one lax.scan,
 checksum readback, difference two scan lengths.
 
     python tools/bench_all.py [--channels N] [--block N]
@@ -70,8 +69,8 @@ def measure(chain_cfg, channels: int, reps: int = 3,
 
 
 def make_configs(channels: int, block: int) -> dict:
-    """The five BASELINE.json measurement configs (shared with
-    tools/mm_ab.py so the A/B and the matrix measure the same thing)."""
+    """The five BASELINE.json measurement configs (shared with bench.py
+    and chip_smoke.py so every measurement uses the same chains)."""
     from iq_tool_tpu.ops.fir_design import FilterRequest
     from iq_tool_tpu.pipeline.chain import ChainConfig
 
@@ -109,15 +108,15 @@ def main() -> int:
     ap.add_argument("--block", type=int, default=1 << 18)
     opts = ap.parse_args()
 
+    import jax
+    if jax.default_backend() != "gpu":
+        sys.exit("bench_all.py: JAX found no GPU")
     configs = make_configs(opts.channels, opts.block)
     for name, cfg in configs.items():
-        try:
-            msps = measure(cfg, cfg.channels)
-            print(json.dumps({"config": name, "channels": cfg.channels,
-                              "Msps_in": round(msps, 1)}), flush=True)
-        except Exception as e:   # keep the matrix going
-            print(json.dumps({"config": name, "error": str(e)[:200]}),
-                  flush=True)
+        msps = measure(cfg, cfg.channels)
+        print(json.dumps({"config": name, "channels": cfg.channels,
+                          "device": jax.devices()[0].device_kind,
+                          "Msps_in": round(msps, 1)}), flush=True)
     return 0
 
 

@@ -102,7 +102,7 @@ def soak(tmp: str, src: str, n_in: int) -> bool:
         print("FAIL soak: cli rc", r.returncode)
         return False
     print(f"soak wall {wall:.0f}s ({n_in / wall / 1e6:.1f} Msps through "
-          "the single-channel CLI incl. tunnel RTT)")
+          "the single-channel CLI incl. host file I/O)")
     return check_tone(dst, n_in, "soak")
 
 

@@ -1,4 +1,4 @@
-"""One process of a multi-host sharded-chain job (CPU-proxy or TPU pod).
+"""One process of a multi-host sharded-chain job (CPU proxy or GPU hosts).
 
 Exercises the real multi-host path end to end (SURVEY.md section 2f
 "communication backend" row):
@@ -9,10 +9,9 @@ Exercises the real multi-host path end to end (SURVEY.md section 2f
   jax.make_array_from_process_local_data -> host-local feeding, no
       cross-process data redistribution in the steady state
   ShardedChain.step     ->  shard_map with ppermute halos; the time-axis
-      halos cross the process boundary via Gloo (CPU proxy) / ICI+DCN (pod)
+      halos cross the process boundary via Gloo (CPU proxy) / NCCL (GPUs)
 
-Run one process per host (the test and tools/multihost_scaling.py spawn
-them locally):
+Run one process per host (tests/test_multihost.py spawns them locally):
 
     JAX_PLATFORMS=cpu python tools/multihost_worker.py \
         --process-id 0 --num-processes 2 --coordinator 127.0.0.1:9876 \

@@ -1,13 +1,15 @@
 """Live SpyServer end-to-end: protocol-faithful fake server on a real
-socket -> `-i spyserver-client` CLI chain on the TPU -> raw file checks.
+socket -> `-i spyserver-client` CLI chain on the device -> raw file checks.
 
-Run on a TPU host: python tools/spyserver_e2e.py
+Run: python tools/spyserver_e2e.py
 """
-import subprocess, sys, threading
+import subprocess, sys, tempfile, threading
 import numpy as np
 import os
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import tests.test_spyserver as ts
+
+OUT = os.path.join(tempfile.gettempdir(), "spy_out.raw")
 
 
 class ToneServer(ts.FakeSpyServer):
@@ -59,7 +61,7 @@ class ToneServer(ts.FakeSpyServer):
 srv = ToneServer(max_rate=4_096_000, min_dec=1, dec_count=4,
                  n_frames=1 << 19)
 r = subprocess.run(
-    [sys.executable, "-m", "iq_tool_tpu", "/dev/null", "/tmp/spy_out.raw",
+    [sys.executable, "-m", "iq_tool_tpu", "/dev/null", OUT,
      "-i", "spyserver-client", "-o", "raw",
      "--spyserver-client-host", "127.0.0.1",
      "--spyserver-client-port", str(srv.port),
@@ -67,12 +69,13 @@ r = subprocess.run(
      "--sdr-rf-freq", "100e6", "--sdr-sample-rate", "2048000",
      "--output-rate", "1488375", "--output-sample-format", "cs16",
      "--lowpass", "400000", "--no-watchdog", "--force-overwrite"],
-    cwd="/root/repo", capture_output=True, text=True, timeout=540)
+    cwd=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."),
+    capture_output=True, text=True, timeout=540)
 print("rc:", r.returncode)
 if r.returncode:
     print(r.stderr[-800:])
     sys.exit(1)
-raw = np.fromfile("/tmp/spy_out.raw", np.int16).astype(np.float64) / 32768.0
+raw = np.fromfile(OUT, np.int16).astype(np.float64) / 32768.0
 x = (raw[0::2] + 1j * raw[1::2])[20000:]
 w = np.hanning(len(x))
 p = np.abs(np.fft.fftshift(np.fft.fft(x * w))) ** 2
